@@ -1,16 +1,16 @@
-"""glimmer_mg_tpu — a TPU-native metagenomics gene-prediction framework.
+"""glimmer_mg_tpu — a JAX metagenomics gene-prediction framework.
 
 A from-scratch reimplementation of the capabilities of Glimmer-MG
 (Kelley et al., NAR 40:1 e9, 2012; reference code at davek44/Glimmer-MG)
-designed for TPU hardware: interpolated-context-model (ICM) scoring as
-batched vectorized/Pallas kernels, ORF enumeration and the gene event-graph
+designed for accelerators: interpolated-context-model (ICM) scoring as
+batched vectorized XLA walks, ORF enumeration and the gene event-graph
 dynamic program as vectorized scans, and Phymm/Scimm-style classification
 and clustering as dense read-by-model score matrices sharded over device
 meshes with jax.sharding + shard_map.
 
 Layout:
   models/    ICM, PWM (RBS motif), feature distributions (length/start/adj)
-  ops/       compute kernels (JAX + Pallas): ICM walk scoring, scans
+  ops/       compute kernels (JAX): ICM walk scoring, scans, device DP
   engine/    ORF finder, event DP, glimmer3/glimmer-mg prediction engines
   parallel/  mesh construction, ICM-bank sharding, collectives
   io/        FASTA, binary .icm codec, .motif/.features.txt/.predict files

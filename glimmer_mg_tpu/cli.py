@@ -545,7 +545,7 @@ def cmd_entropy_profile(argv):
 def cmd_classify(argv):
     p = argparse.ArgumentParser(
         prog="classify",
-        description="Phymm-equivalent read classification on the TPU bank",
+        description="Phymm-equivalent read classification on the device bank",
     )
     p.add_argument("sequence_file")
     p.add_argument("icm_dir")
@@ -559,8 +559,7 @@ def cmd_classify(argv):
     p.add_argument("--num_procs", type=int, help="multi-host: process count")
     p.add_argument("--proc_id", type=int, help="multi-host: this process id")
     p.add_argument("--platform", default=None, metavar="NAME",
-                   help="force the jax platform (e.g. cpu, tpu); some "
-                        "device plugins ignore the JAX_PLATFORMS env var")
+                   help="force the jax platform: cpu or gpu")
     a = p.parse_args(argv)
 
     if a.platform:
@@ -803,6 +802,9 @@ def main(argv=None):
         print(f"usage: glimmer_mg_tpu <{'|'.join(COMMANDS)}> [options]",
               file=sys.stderr)
         return 2
+    from .utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     return COMMANDS[argv[0]](argv[1:]) or 0
 
 

@@ -3,7 +3,7 @@
 The reference streams a 12-bit codon register over the sequence updating
 per-frame first-start/last-start/previous-stop registers. Here the codon
 classification is fully vectorized (boolean position arrays from the 12-bit
-codon stream — the TPU path reuses these arrays); ORF assembly then walks
+codon stream — the device path mirrors these arrays); ORF assembly then walks
 only the stop positions in global order, answering the first-start /
 last-start queries with searchsorted. Output order matches the reference
 exactly (stop-occurrence order; then end-of-sequence reverse ORFs per frame;

@@ -1,4 +1,4 @@
-"""DNA alphabet encoding for TPU-friendly integer representations.
+"""DNA alphabet encoding as dense integer arrays for the device walks.
 
 Behavioral parity targets in the reference implementation:
   - ``Subscript``/``Filter`` (reference src/ICM/icm.cc:2008, src/Common/gene.cc:1139):

@@ -179,7 +179,7 @@ def write_icm(icm: ICM, path) -> None:
 
 # ---------------------------------------------------------------------------
 # Exact (numpy, float64-accumulating) scoring — the host-side parity oracle.
-# The TPU kernels live in ops/icm_score.py; this version defines the
+# The device walks live in ops/icm_score.py; this version defines the
 # semantics they are tested against.
 # ---------------------------------------------------------------------------
 

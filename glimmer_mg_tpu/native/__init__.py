@@ -8,8 +8,8 @@ byte-for-byte against the reference binaries).  The 6-frame ICM LLR
 precompute is either passed in per read (device-computed) or computed
 natively by the same tree walk.
 
-Build: ``make -C glimmer_mg_tpu/native`` or automatic on first import
-(g++ -O3, cached as _engine.so next to this file).
+Build: automatic on first use (g++ -O3, cached as _engine.so next to this
+file, which git ignores); rebuilt when engine.cpp is newer.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes as ct
 import os
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
@@ -35,11 +36,20 @@ class NativeUnavailable(RuntimeError):
 
 
 def _build() -> None:
-    cmd = [
-        "g++", "-O3", "-std=c++17", "-fPIC", "-shared", "-pthread",
-        "-o", _SO, _SRC,
-    ]
-    subprocess.run(cmd, check=True, capture_output=True, text=True)
+    # compile beside the target and rename into place: processes that
+    # build at once (test workers) never load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_DIR)
+    os.close(fd)
+    try:
+        cmd = [
+            "g++", "-O3", "-std=c++17", "-fPIC", "-shared", "-pthread",
+            "-o", tmp, _SRC,
+        ]
+        subprocess.run(cmd, check=True, capture_output=True, text=True)
+        os.replace(tmp, _SO)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def get_lib():

@@ -1,12 +1,12 @@
 // Native per-read glimmer-mg prediction engine.
 //
-// This is the runtime hot path of the TPU framework: the per-read work that
-// cannot ride the MXU (ORF enumeration, start/indel/substitution scanning,
-// RBS scoring, feature-model lookups, the event-graph DP and traceback) runs
-// here in C++, batched over reads and threaded.  The ICM 6-frame per-base
-// LLR precompute can either be supplied per read (device-computed by the
-// Pallas/XLA kernels and fetched once per chunk) or computed natively by the
-// same tree walk when no accelerator is attached.
+// This is the host engine of the framework and the parity baseline for the
+// device-resident path: the per-read work (ORF enumeration,
+// start/indel/substitution scanning, RBS scoring, feature-model lookups, the
+// event-graph DP and traceback) runs here in C++, batched over reads and
+// threaded.  The ICM 6-frame per-base LLR precompute can either be supplied
+// per read (device-computed by the XLA walk and fetched once per chunk) or
+// computed natively by the same tree walk.
 //
 // Semantics are an exact mirror of the Python oracle package
 // (glimmer_mg_tpu.engine.{orfs,events,glimmer3,glimmer_mg} and
@@ -1994,7 +1994,8 @@ static double pass_stop_penalty(const int8_t* seq, const int32_t* quals,
   double codon_p[3];
   for (int k = 0; k < 3; ++k)
     codon_p[k] = use_quals
-                     ? 1.0 - std::pow(10.0, -(double)quals[stop_i[k]] / 10.0)
+                     ? 1.0 - std::pow(10.0, -(double)std::max(
+                                                quals[stop_i[k]], 0) / 10.0)
                      : default_p;
   double p_stop = codon_p[0];
   const int8_t mid = seq[stop_i[1]];
@@ -2007,6 +2008,9 @@ static double pass_stop_penalty(const int8_t* seq, const int32_t* quals,
     p_stop *= 2.0 / 3.0 * codon_p[2] + 1.0 / 3.0;
   else
     p_stop *= codon_p[2];
+  // the device path's clamp: finite at the phred extremes
+  p_stop = std::min(std::max(p_stop, std::numeric_limits<double>::min()),
+                    1.0 - std::numeric_limits<double>::epsilon() / 2.0);
   return std::log(1.0 - p_stop) - std::log(p_stop);
 }
 

@@ -1,9 +1,9 @@
-"""Vectorized ICM scoring for TPU (JAX/XLA formulation).
+"""Vectorized ICM scoring on the device (JAX/XLA formulation).
 
 The reference scores one base at a time with a data-dependent tree walk
 (``ICM_t::Full_Window_Prob``, reference src/ICM/icm.cc:557-610;
 ``Partial_Window_Prob`` icm.cc:807-842; ``Score_String`` icm.cc:864).
-On TPU we reformulate:
+Here the walk is reformulated:
 
   * The 11-base context window of every position is packed into one int32
     (2 bits per base, window position w at bits 2w..2w+1). The walk step
@@ -134,7 +134,7 @@ def bank_score_reads(
 
     Equivalent to Phymm's per-ICM ``simple-score -N`` loop over the read set
     (reference scripts/scoreReadsGlim.pl:450), restructured as a dense
-    read-by-model matrix for the MXU/VPU. Frame 0 at base 0, cycling — the
+    read-by-model matrix. Frame 0 at base 0, cycling — the
     convention used when scoring whole reads.
     """
     b, l = reads.shape

@@ -1,4 +1,4 @@
-"""On-device (JAX) ICM bank training — the TPU path for per-cluster retraining.
+"""On-device (JAX) ICM bank training — the device path for per-cluster retraining.
 
 Jittable reformulation of the trainer in models/icm_train.py (reference
 ``ICM_Training_t``, src/ICM/icm.cc:1010-1462): every tree level is a batched
@@ -15,8 +15,8 @@ collective); the resulting bank is replicated or model-sharded for scoring.
 
 Numerical notes: counts are exact integers (int32); probability math follows
 the same f32-store/f64-compute pattern as the host trainer but runs in f32
-on TPU (training decisions are count-dominated; the host trainer remains the
-bit-exact oracle).
+on the device (training decisions are count-dominated; the host trainer
+remains the bit-exact oracle).
 """
 
 from __future__ import annotations

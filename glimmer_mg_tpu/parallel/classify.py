@@ -1,6 +1,6 @@
 """Sharded read classification and EM clustering steps.
 
-TPU-native reformulation of the reference's scale-out (SURVEY §2.4):
+Device reformulation of the reference's scale-out (SURVEY §2.4):
 
   * Phymm classification (scripts/scoreReadsGlim.pl:380-560 — every read
     scored against every ICM in the bank, forward and reverse-complement,
@@ -18,7 +18,6 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.sharding import NamedSharding, PartitionSpec as P
 
 from ..ops import icm_score, icm_train_device
 from ..models import dna
@@ -68,7 +67,7 @@ def em_step(
     context counts (chi-square deleted interpolation) -> return the new
     bank plus the assignment. Under a (data, model) mesh with reads sharded
     on ``data`` and the bank on ``model``, XLA turns the argmax into an
-    all-gather over ICI and the count histograms into a psum.
+    all-gather and the count histograms into a psum.
     """
     scores, best = classify_step(bank_mip, bank_probs, reads, lengths, model_len, depth)
     assign = jax.nn.one_hot(best, n_models, dtype=jnp.float32)
@@ -82,57 +81,6 @@ def em_step(
         periodicity=periodicity,
     )
     return new_mip, new_probs, best, scores
-
-
-@functools.partial(jax.jit, static_argnames=("model_len", "depth"))
-def classify_step_pallas(level_mip, probs_pk, reads, lengths, model_len=12, depth=7):
-    """classify_step through the Pallas lane-gather walk kernel (TPU fast path)."""
-    from ..ops.icm_pallas import bank_score_reads_pallas
-
-    fwd = bank_score_reads_pallas(level_mip, probs_pk, reads, lengths, model_len, depth)
-    rc = revcomp_reads(reads, lengths)
-    rev = bank_score_reads_pallas(level_mip, probs_pk, rc, lengths, model_len, depth)
-    scores = jnp.maximum(fwd, rev)
-    return scores, jnp.argmax(scores, axis=1).astype(jnp.int32)
-
-
-def classify_step_pallas_sharded(
-    mesh, level_mip, probs_pk, reads, lengths, model_len=12, depth=7,
-    interpret=False,
-):
-    """Pallas classification sharded over a (data, model) mesh.
-
-    ``shard_map`` runs the lane-gather walk kernel per shard on its local
-    (model-slice, read-slice) block — the reference's TWO phymm_par.py
-    fan-out modes at once (ICM-sharded :146-200 and read-sharded :210-261)
-    with XLA collectives as the file merge. Per-chip throughput equals the
-    single-chip Pallas path (no fallback to the slow XLA walk).
-
-    The bank's leading dim must divide by the ``model`` axis size and the
-    batch by ``data`` (callers pad; see phymm.PhymmBank.score_reads).
-    Returns (scores (B, M) f32, best (B,) int32) fully replicated.
-    """
-    from jax.sharding import PartitionSpec as P
-
-    from ..ops.icm_pallas import bank_score_reads_pallas
-
-    def _local(lm, pk, r, ln):
-        fwd = bank_score_reads_pallas(
-            lm, pk, r, ln, model_len, depth, interpret=interpret)
-        rc = revcomp_reads(r, ln)
-        rev = bank_score_reads_pallas(
-            lm, pk, rc, ln, model_len, depth, interpret=interpret)
-        return jnp.maximum(fwd, rev)
-
-    local = jax.shard_map(
-        _local,
-        mesh=mesh,
-        in_specs=(P("model"), P("model"), P("data"), P("data")),
-        out_specs=P("data", "model"),
-        check_vma=False,
-    )
-    scores = local(level_mip, probs_pk, reads, lengths)
-    return scores, jnp.argmax(scores, axis=1).astype(jnp.int32)
 
 
 def pad_reads(seqs, length=None):

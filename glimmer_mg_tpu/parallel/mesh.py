@@ -23,35 +23,19 @@ def init_distributed(
     process_id: int | None = None,
     local_device_ids=None,
 ) -> bool:
-    """Initialize multi-host (DCN) mode; the framework's replacement for the
+    """Initialize multi-process mode; the framework's replacement for the
     reference's Condor process fan-out (scripts/phymm_par.py:268-274).
 
-    Call once per process before any JAX computation. After it returns,
-    ``jax.devices()`` is the GLOBAL device list, so :func:`make_mesh` builds
-    a cross-host mesh and the classification all-gather / EM count psum ride
-    the collective fabric (gloo on CPU, ICI/DCN on TPU pods — where the
-    plugin auto-detects and all arguments may be omitted). Single-process
-    runs (num_processes None/1 outside a TPU pod) are a no-op; returns
-    whether distributed mode was initialized.
+    Call once per process before any JAX computation, with the coordinator
+    address, process count and this process's id (nothing auto-detects a
+    cluster). After it returns, ``jax.devices()`` is the GLOBAL device
+    list, so :func:`make_mesh` builds a cross-process mesh and the
+    classification all-gather / EM count psum ride the collective fabric
+    (gloo on CPU, NCCL on GPUs). Single-process runs (num_processes
+    None/1) are a no-op; returns whether distributed mode was initialized.
     """
-    import jax
-
-    if num_processes is not None and num_processes <= 1:
+    if num_processes is None or num_processes <= 1:
         return False
-    if coordinator_address is None and num_processes is None:
-        # rely on env/plugin auto-detection (TPU pods); no-op otherwise
-        try:
-            jax.distributed.initialize()
-            return True
-        except Exception as e:
-            import sys
-
-            print(
-                f"[mesh] jax.distributed auto-detect failed ({e!r}); "
-                "continuing single-process",
-                file=sys.stderr,
-            )
-            return False
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,

@@ -4,8 +4,8 @@ The reference pipeline (scripts/phymm_par.py + scripts/scoreReadsGlim.pl)
 fans out processes, each running `simple-score -N <icm>` over all reads
 forward and reverse-complement, keeping the per-read max, then merges score
 matrices from files. Here the whole bank is a stacked tensor scored on
-device in one pass (the Pallas MXU walk kernel), optionally sharded over a
-(data, model) mesh; the "merge" is the device argmax/top-k.
+device in one pass (the XLA gather walk, ops.icm_score), optionally sharded
+over a (data, model) mesh; the "merge" is the device argmax/top-k.
 
 File-format parity: emits/reads the reference's rawPhymmOutput_*.txt
 (BEGIN_ICM_LIST / BEGIN_READID_LIST / BEGIN_DATA_MATRIX, one row per ICM;
@@ -22,7 +22,7 @@ import os
 import numpy as np
 
 from ..models import icm as icm_mod
-from ..ops import icm_pallas, icm_score
+from ..ops import icm_score
 from . import classify as pclassify
 
 
@@ -41,21 +41,25 @@ def path_to_genome(path: str) -> str:
 class PhymmBank:
     """A stacked, device-ready ICM bank."""
 
-    def __init__(self, icm_paths: list[str]):
-        self.paths = icm_paths
-        icms = [icm_mod.read_icm(p) for p in icm_paths]
-        self.model_len = icms[0].model_len
-        self.depth = max(m.model_depth for m in icms)
-        mip, probs = icm_score.stack_bank(icms)
+    def __init__(self, paths: list[str], mip, probs, model_len: int,
+                 depth: int):
+        self.paths = paths
         self.mip, self.probs = mip, probs
-        self.tables = icm_pallas.pack_tables(mip, probs)
+        self.model_len, self.depth = model_len, depth
+
+    @classmethod
+    def from_paths(cls, icm_paths: list[str]) -> "PhymmBank":
+        icms = [icm_mod.read_icm(p) for p in icm_paths]
+        mip, probs = icm_score.stack_bank(icms)
+        return cls(icm_paths, mip, probs, icms[0].model_len,
+                   max(m.model_depth for m in icms))
 
     @classmethod
     def from_genome_data(cls, icm_dir: str) -> "PhymmBank":
-        return cls(genome_icm_paths(icm_dir))
+        return cls.from_paths(genome_icm_paths(icm_dir))
 
-    def score_reads(self, seqs: list[str], batch: int = 512, use_pallas=None,
-                    progress=None, mesh=None):
+    def score_reads(self, seqs: list[str], batch: int = 512, progress=None,
+                    mesh=None):
         """(n_reads, n_models) fwd/rev-max scores. Pads reads per batch.
 
         ``progress`` is an optional utils.observe.ProgressLog advanced once
@@ -66,72 +70,43 @@ class PhymmBank:
         phymm_par.py fan-out modes at once); bank/batch are padded to the
         axis sizes and the pads sliced off the result.
         """
-        import jax
+        from . import mesh as pmesh
 
-        if use_pallas is None:
-            use_pallas = jax.default_backend() == "tpu"
         n = len(seqs)
         m = len(self.paths)
         out = np.zeros((n, m), dtype=np.float32)
         length = max((len(s) for s in seqs), default=0)
-        length = max(3, length + (-length) % 3)  # pallas needs L % 3 == 0
-
-        mip_s = probs_s = lm_s = pk_s = None
+        mip, probs = self.mip, self.probs
         if mesh is not None:
-            from jax.sharding import NamedSharding, PartitionSpec as P
-
-            from . import mesh as pmesh
-
             dat, mdl = mesh.shape["data"], mesh.shape["model"]
             pad_m = (-m) % mdl
-            mip, probs = self.mip, self.probs
             if pad_m:
                 mip = np.concatenate([mip, np.repeat(mip[:1], pad_m, axis=0)])
                 probs = np.concatenate(
                     [probs, np.repeat(probs[:1], pad_m, axis=0)]
                 )
-            if use_pallas:
-                # the Pallas fast path runs per shard via shard_map — the
-                # mesh no longer falls back to the slow XLA walk
-                lm, pk = icm_pallas.pack_tables(mip, probs, depth=self.depth)
-                ms = NamedSharding(mesh, P("model"))
-                lm_s, pk_s = jax.device_put(lm, ms), jax.device_put(pk, ms)
-            else:
-                mip_s, probs_s = pmesh.shard_bank(mesh, mip, probs)
+            mip, probs = pmesh.shard_bank(mesh, mip, probs)
 
+        # every batch has the same row count (a short tail is padded with
+        # empty reads), so one compiled step serves the whole read set
+        rows = min(batch, n)
+        if mesh is not None:
+            rows += (-rows) % dat
         for lo in range(0, n, batch):
             chunk = seqs[lo : lo + batch]
             reads, lengths = pclassify.pad_reads(chunk, length=length)
+            pad_b = rows - len(chunk)
+            if pad_b:
+                reads = np.pad(reads, ((0, pad_b), (0, 0)))
+                lengths = np.pad(lengths, (0, pad_b))
             if mesh is not None:
-                from . import mesh as pmesh
-
-                pad_b = (-len(chunk)) % dat
-                if pad_b:
-                    reads = np.pad(reads, ((0, pad_b), (0, 0)))
-                    lengths = np.pad(lengths, (0, pad_b))
-                reads_s, lengths_s = pmesh.shard_reads(mesh, reads, lengths)
-                if use_pallas:
-                    scores, _ = pclassify.classify_step_pallas_sharded(
-                        mesh, lm_s, pk_s, reads_s, lengths_s,
-                        self.model_len, self.depth,
-                    )
-                else:
-                    with mesh:
-                        scores, _ = pclassify.classify_step(
-                            mip_s, probs_s, reads_s, lengths_s,
-                            self.model_len, self.depth,
-                        )
-                # multi-host safe: process_allgather instead of np.asarray
-                scores = pmesh.materialize(scores)[: len(chunk), :m]
-            elif use_pallas:
-                scores, _ = pclassify.classify_step_pallas(
-                    *self.tables, reads, lengths, self.model_len, self.depth
-                )
-            else:
-                scores, _ = pclassify.classify_step(
-                    self.mip, self.probs, reads, lengths, self.model_len, self.depth
-                )
-            out[lo : lo + len(chunk)] = np.asarray(scores)
+                reads, lengths = pmesh.shard_reads(mesh, reads, lengths)
+            scores, _ = pclassify.classify_step(
+                mip, probs, reads, lengths, self.model_len, self.depth
+            )
+            # multi-host safe: process_allgather instead of np.asarray
+            out[lo : lo + len(chunk)] = pmesh.materialize(scores)[
+                : len(chunk), :m]
             if progress is not None:
                 progress.advance(len(chunk))
         return out

@@ -1,6 +1,6 @@
 """Full glimmer-mg metagenomics pipeline (reference scripts/glimmer-mg.py).
 
-Stages: Phymm-style classification (TPU bank scoring) -> top-k class
+Stages: Phymm-style classification (device bank scoring) -> top-k class
 parsing with the informative-genome filter -> initial per-read prediction
 (classification-parameterized models) -> Scimm-style clustering ->
 per-cluster retraining + reprediction -> cluster-vs-classification

@@ -100,25 +100,21 @@ def _bank_to_icms(mip, probs, model_len=12, depth=7) -> list:
 def _device_em(reads, lengths, init_assign, n_clusters, max_iters, mesh=None,
                model_len=12, depth=7):
     """EM with per-cluster retraining ON DEVICE (ops.icm_train_device) and
-    classification through the Pallas walk kernel on TPU (the XLA walk
-    elsewhere). With ``mesh``, reads shard over the ``data`` axis — the
-    count histograms become a psum, the argmax an all-gather (the sharding
-    dryrun_multichip exercises via parallel.classify.em_step)."""
+    classification through the XLA walk (parallel.classify). With ``mesh``,
+    reads shard over the ``data`` axis — the count histograms become a
+    psum, the argmax an all-gather (the sharding dryrun_multichip exercises
+    via parallel.classify.em_step)."""
     import jax
 
-    from ..ops import icm_pallas, icm_train_device
+    from ..ops import icm_train_device
+    from ..parallel import mesh as pmesh
 
-    use_pallas = jax.default_backend() == "tpu"
     n_reads = reads.shape[0]
-    n_pad_models = n_clusters
     if mesh is not None:
-        from ..parallel import mesh as pmesh
-
         # zero-pad to the data-axis size (pad rows have length 0: no counts,
         # no scores) — NamedSharding requires even divisibility
         reads, lengths, n_reads = pmesh.pad_batch(mesh, reads, lengths)
         reads, lengths = pmesh.shard_reads(mesh, reads, lengths)
-        n_pad_models = -(-n_clusters // mesh.shape["model"]) * mesh.shape["model"]
 
     assign = np.asarray(init_assign, dtype=np.int32).copy()
     scores = mip = probs = None
@@ -131,55 +127,14 @@ def _device_em(reads, lengths, init_assign, n_clusters, max_iters, mesh=None,
         )
         if it == max_iters:
             break
-        if use_pallas and mesh is not None:
-            from jax.sharding import NamedSharding, PartitionSpec as P
-
-            from ..parallel import mesh as pmesh
-
-            # sharded Pallas fast path: pad the retrained bank to the model
-            # axis and shard_map the walk kernel (no XLA-walk fallback)
-            mip_h, probs_h = np.asarray(mip), np.asarray(probs)
-            if n_pad_models > n_clusters:
-                pad = n_pad_models - n_clusters
-                mip_h = np.concatenate([mip_h, np.repeat(mip_h[:1], pad, 0)])
-                probs_h = np.concatenate([probs_h, np.repeat(probs_h[:1], pad, 0)])
-            lm, pk = icm_pallas.pack_tables(mip_h, probs_h, depth=depth)
-            ms = NamedSharding(mesh, P("model"))
-            scores, _ = pclassify.classify_step_pallas_sharded(
-                mesh, jax.device_put(lm, ms), jax.device_put(pk, ms),
-                reads, lengths, model_len, depth)
-            scores = pmesh.materialize(scores)[:, :n_clusters]
-        elif use_pallas:
-            tabs = icm_pallas.pack_tables(np.asarray(mip), np.asarray(probs),
-                                          depth=depth)
-            scores, _ = pclassify.classify_step_pallas(
-                *tabs, reads, lengths, model_len, depth)
-            scores = np.asarray(scores)
-        else:
-            ctx = mesh if mesh is not None else _nullcontext()
-            with ctx:
-                scores, _ = pclassify.classify_step(
-                    mip, probs, reads, lengths, model_len, depth)
-            if mesh is not None:
-                from ..parallel import mesh as pmesh
-
-                scores = pmesh.materialize(scores)
-            else:
-                scores = np.asarray(scores)
-        scores = scores[:n_reads]
+        scores, _ = pclassify.classify_step(
+            mip, probs, reads, lengths, model_len, depth)
+        scores = pmesh.materialize(scores)[:n_reads]
         new_assign = np.argmax(scores, axis=1).astype(np.int32)
         if np.array_equal(new_assign, assign):
             break
         assign = new_assign
     return assign, _bank_to_icms(mip, probs, model_len, depth), scores
-
-
-class _nullcontext:
-    def __enter__(self):
-        return None
-
-    def __exit__(self, *a):
-        return False
 
 
 def scimm_cluster(
@@ -194,14 +149,14 @@ def scimm_cluster(
 ):
     """Iterative EM clustering; returns (assign, cluster_icms, scores).
 
-    ``use_device=None`` auto-selects: the device EM (bank trainer +
-    Pallas/XLA classifier, one jitted dispatch per stage) on TPU, the
-    bit-exact host trainer elsewhere. ``mesh`` shards reads over the
+    ``use_device=None`` auto-selects: the device EM (bank trainer + XLA
+    classifier, one jitted dispatch per stage) on a GPU backend, the
+    bit-exact host trainer on a CPU backend. ``mesh`` shards reads over the
     ``data`` axis of a (data, model) mesh (device path only)."""
     import jax
 
     if use_device is None:
-        use_device = jax.default_backend() == "tpu"
+        use_device = jax.default_backend() == "gpu"
     assign = np.asarray(init_assign, dtype=np.int32).copy()
     length = max((len(s) for s in seqs), default=3)
     length += (-length) % 3

@@ -13,7 +13,7 @@ work counters (reads, bp), from which reads/s and Mbp/s throughputs are
 derived — the BASELINE metrics. ``write_time_files`` emits the reference's
 ``time_<out>_<stage>.txt`` format (one ``%.3fs`` line per file) so tooling
 that consumed the reference's --time output keeps working. ``profiler_trace``
-wraps ``jax.profiler.trace`` for on-demand XLA/TPU traces.
+wraps ``jax.profiler.trace`` for on-demand XLA device traces.
 """
 
 from __future__ import annotations

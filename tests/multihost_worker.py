@@ -3,7 +3,7 @@
 Each process owns 4 virtual CPU devices; parallel.mesh.init_distributed joins
 them into one 8-device world. The (data, model) mesh then spans process
 boundaries, so em_step's classification argmax all-gathers and its training
-count histograms psum across DCN (gloo on CPU) — the wiring a TPU pod uses.
+count histograms psum across processes (gloo on CPU, NCCL on GPUs).
 Usage: multihost_worker.py <process_id> <num_processes> <port>
 """
 

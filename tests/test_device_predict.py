@@ -16,7 +16,6 @@ import pytest
 from glimmer_mg_tpu.engine import glimmer_mg as mg
 from glimmer_mg_tpu.engine import orfs as orf_mod
 from glimmer_mg_tpu.engine.glimmer3 import Models
-from glimmer_mg_tpu.io.fasta import read_fasta
 from glimmer_mg_tpu.models import dna, icm as icm_mod, icm_train
 
 
@@ -66,7 +65,39 @@ def trained_models():
         genomes[f"s{gi}|chr"] = "".join(parts)
     train_all.train_all(genomes, os.path.join(root, "genomeData"))
     gd = GenomeData(os.path.join(root, "genomeData"))
-    return gd, list(genomes)
+    return gd, list(genomes), genomes
+
+
+def _seeded_reads(genomes, n, seed, read_len=500):
+    """Seeded reads sampled from the fixture's own genomes (both strands,
+    arbitrary offsets relative to genes)."""
+    from glimmer_mg_tpu import bench_db
+
+    reads, _src = bench_db.sample_reads(genomes, n, read_len=read_len,
+                                        seed=seed)
+    return reads
+
+
+def _fragments(genome, n, seed, max_subs=4, stops=2):
+    """Seeded 200-700 bp fragments of one genome with 0..max_subs-1
+    sprinkled substitutions and ``stops`` stop codons written over random
+    positions (in-frame inside a gene a third of the time), so that -S
+    mode has stops to read through."""
+    genome = genome.lower()
+    rng = np.random.default_rng(seed)
+    reads = []
+    for i in range(n):
+        rl = int(rng.integers(200, 700))
+        st = int(rng.integers(0, len(genome) - rl))
+        s = list(genome[st:st + rl])
+        for _ in range(int(rng.integers(0, max_subs))):
+            p = int(rng.integers(0, rl))
+            s[p] = "acgt"[int(rng.integers(0, 4))]
+        for _ in range(stops):
+            p = int(rng.integers(0, rl - 3))
+            s[p:p + 3] = ("taa", "tag", "tga")[int(rng.integers(0, 3))]
+        reads.append((f"r{i}", "".join(s)))
+    return reads
 
 
 def _run_both(reads, gd, cls_map, monkeypatch):
@@ -82,10 +113,10 @@ def _run_both(reads, gd, cls_map, monkeypatch):
 
 
 def test_sample_reads_parity(trained_models, monkeypatch):
-    """Coordinate parity on the reference's sample reads (classes mode)."""
-    gd, classes = trained_models
-    recs = list(read_fasta("/root/reference/sample-run/glimmer-mg/seqs.fa"))
-    recs = recs[:250]
+    """Coordinate parity on seeded reads of the fixture genomes (classes
+    mode)."""
+    gd, classes, genomes = trained_models
+    recs = _seeded_reads(genomes, 250, seed=1)
     cls_map = {
         h.split()[0]: [classes[i % 2], classes[(i + 1) % 2]]
         for i, (h, _s) in enumerate(recs)
@@ -102,7 +133,7 @@ def test_sample_reads_parity(trained_models, monkeypatch):
 
 def test_fuzz_random_reads(trained_models, monkeypatch):
     """Random reads of varied lengths, including degenerate tiny ones."""
-    gd, classes = trained_models
+    gd, classes, genomes = trained_models
     rng = np.random.default_rng(17)
     reads = []
     cls_map = {}
@@ -121,11 +152,10 @@ def test_fuzz_random_reads(trained_models, monkeypatch):
 
 def test_user_icm_mode_parity(trained_models, monkeypatch):
     """run_glimmer_mg (-m user ICM, no classes) through the device path."""
-    gd, classes = trained_models
+    gd, classes, genomes = trained_models
     icm_file = gd.classes_icm_file([classes[0]])
     gicm = icm_mod.read_icm_cached(icm_file)
-    recs = list(read_fasta("/root/reference/sample-run/glimmer-mg/seqs.fa"))
-    recs = recs[:80]
+    recs = _seeded_reads(genomes, 80, seed=2)
 
     monkeypatch.setenv("GLIMMER_MG_TPU_NATIVE", "0")
     monkeypatch.delenv("GLIMMER_MG_TPU_DEVICE_DP", raising=False)
@@ -140,9 +170,8 @@ def test_subs_mode_device_parity_classes(trained_models, monkeypatch):
     """Substitution mode (-S) runs ON DEVICE since r5: classes-mode
     coordinate + error-record parity vs the host engine. Indel mode still
     falls back (checked below)."""
-    gd, classes = trained_models
-    recs = list(read_fasta("/root/reference/sample-run/glimmer-mg/seqs.fa"))
-    recs = recs[:25]
+    gd, classes, genomes = trained_models
+    recs = _seeded_reads({classes[0]: genomes[classes[0]]}, 25, seed=3)
     cls_map = {h.split()[0]: [classes[0]] for h, _s in recs}
 
     monkeypatch.setenv("GLIMMER_MG_TPU_NATIVE", "0")
@@ -168,27 +197,14 @@ def test_subs_mode_device_parity_classes(trained_models, monkeypatch):
         assert _coords(hg) == _coords(dg), h
 
 
-def test_subs_mode_device_parity_fuzz(monkeypatch):
-    """Error-dense fuzz for the device substitution machinery: NC_000915
-    fragments with sprinkled substitutions, user-ICM mode; coordinates,
-    error records, and ORF ids must all match the host engine."""
-    from glimmer_mg_tpu.models import icm as icm_mod2
-
-    gicm = icm_mod2.read_icm(
-        "/root/reference/sample-run/glimmer3/results/NC_000915.icm")
-    (_h, genome), = read_fasta(
-        "/root/reference/sample-run/glimmer3/NC_000915.fna")
-    genome = genome.lower()
-    rng = np.random.default_rng(9)
-    reads = []
-    for i in range(80):
-        rl = int(rng.integers(200, 700))
-        st = int(rng.integers(0, len(genome) - rl))
-        s = list(genome[st:st + rl])
-        for _ in range(int(rng.integers(0, 4))):
-            p = int(rng.integers(0, rl))
-            s[p] = "acgt"[int(rng.integers(0, 4))]
-        reads.append((f"r{i}", "".join(s)))
+def test_subs_mode_device_parity_fuzz(trained_models, monkeypatch):
+    """Error-dense fuzz for the device substitution machinery: fragments
+    of a self-trained genome with sprinkled substitutions and stops,
+    classes mode; coordinates, error records, and ORF ids must all match
+    the host engine."""
+    gd, classes, genomes = trained_models
+    reads = _fragments(genomes[classes[0]], 80, seed=9)
+    cls_map = {h: [classes[0]] for h, _s in reads}
 
     def run(dev):
         monkeypatch.setenv("GLIMMER_MG_TPU_NATIVE", "0")
@@ -199,8 +215,9 @@ def test_subs_mode_device_parity_fuzz(monkeypatch):
         return [
             (h, [(g.id, g.start, g.stop, g.frame,
                   tuple((e.pos, e.type) for e in g.errors)) for g in gs])
-            for h, gs in mg.run_glimmer_mg(reads, gicm, allow_subs=True,
-                                           device_precompute=False)]
+            for h, gs in mg.run_glimmer_mg_classes(
+                reads, gd, cls_map, allow_subs=True,
+                device_precompute=False)]
 
     host = run(False)
     dev = run(True)
@@ -209,35 +226,22 @@ def test_subs_mode_device_parity_fuzz(monkeypatch):
     assert n_err >= 5  # the corpus really exercised sub-extended genes
 
 
-def test_subs_mode_quality_file_device_parity(monkeypatch):
+def test_subs_mode_quality_file_device_parity(trained_models, monkeypatch):
     """Quality-file subs mode runs ON DEVICE: Pass_Stop_Penalty switches
     to the per-position quality form (glimmer-mg.cc:961) built from
     uploaded uint8 qualities. A mixed bank (reads with and without a
     quality file) must match the host engine on coordinates, ids, AND
     error records."""
-    from glimmer_mg_tpu.models import icm as icm_mod2
-
-    gicm = icm_mod2.read_icm(
-        "/root/reference/sample-run/glimmer3/results/NC_000915.icm")
-    (_h, genome), = read_fasta(
-        "/root/reference/sample-run/glimmer3/NC_000915.fna")
-    genome = genome.lower()
+    gd, classes, genomes = trained_models
+    reads = _fragments(genomes[classes[0]], 60, seed=31)
+    cls_map = {h: [classes[0]] for h, _s in reads}
     rng = np.random.default_rng(31)
-    reads = []
     qualities = {}
-    for i in range(60):
-        rl = int(rng.integers(200, 700))
-        st = int(rng.integers(0, len(genome) - rl))
-        s = list(genome[st:st + rl])
-        for _ in range(int(rng.integers(0, 4))):
-            p = int(rng.integers(0, rl))
-            s[p] = "acgt"[int(rng.integers(0, 4))]
-        rid = f"q{i}"
-        reads.append((rid, "".join(s)))
+    for i, (rid, s) in enumerate(reads):
         if i % 3 != 2:  # two thirds carry a quality file entry
             # full plausible phred span incl. extremes (q=1 -> p=0.2,
             # q~87 -> p within an ulp of 1.0)
-            qualities[rid] = [int(q) for q in rng.integers(1, 88, rl)]
+            qualities[rid] = [int(q) for q in rng.integers(1, 88, len(s))]
 
     def run(dev):
         monkeypatch.setenv("GLIMMER_MG_TPU_NATIVE", "0")
@@ -245,8 +249,8 @@ def test_subs_mode_quality_file_device_parity(monkeypatch):
         return [
             (h, [(g.id, g.start, g.stop, g.frame,
                   tuple((e.pos, e.type) for e in g.errors)) for g in gs])
-            for h, gs in mg.run_glimmer_mg(
-                reads, gicm, allow_subs=True, qualities=qualities,
+            for h, gs in mg.run_glimmer_mg_classes(
+                reads, gd, cls_map, allow_subs=True, qualities=qualities,
                 device_precompute=False)]
 
     host = run(False)
@@ -262,9 +266,8 @@ def test_quality_file_error_free_stays_on_device(trained_models,
     are the indel branch and Pass_Stop_Penalty), so a quality file must
     not knock reads off the device path — and the output must equal the
     no-quality run."""
-    gd, classes = trained_models
-    recs = list(read_fasta("/root/reference/sample-run/glimmer-mg/seqs.fa"))
-    recs = recs[:40]
+    gd, classes, genomes = trained_models
+    recs = _seeded_reads(genomes, 40, seed=4)
     rng = np.random.default_rng(41)
     cls_map = {h.split()[0]: [classes[i % 2]]
                for i, (h, _s) in enumerate(recs)}
@@ -294,14 +297,12 @@ def test_quality_file_error_free_stays_on_device(trained_models,
 
 
 def test_f32_dp_parity(trained_models, monkeypatch):
-    """The f32 score-carry mode (the TPU-fast configuration — f64 is
-    emulated on TPU) must also be coordinate-identical to the host
-    engine on sample + fuzz reads."""
-    gd, classes = trained_models
+    """The f32 score-carry mode must also be coordinate-identical to the
+    host engine on seeded + fuzz reads."""
+    gd, classes, genomes = trained_models
     monkeypatch.setenv("GLIMMER_MG_TPU_DEVICE_DP_F32", "1")
     rng = np.random.default_rng(23)
-    recs = list(read_fasta("/root/reference/sample-run/glimmer-mg/seqs.fa"))
-    reads = recs[:120]
+    reads = _seeded_reads(genomes, 120, seed=5)
     for i in range(60):
         n = int(rng.integers(60, 600))
         reads.append((f"fz{i}", "".join(rng.choice(list("acgt"), n))))
@@ -320,9 +321,8 @@ def test_event_overflow_falls_back(trained_models, monkeypatch):
     output. Forced by shrinking MAX_EVENTS."""
     from glimmer_mg_tpu.ops import device_predict as dpk
 
-    gd, classes = trained_models
-    recs = list(read_fasta("/root/reference/sample-run/glimmer-mg/seqs.fa"))
-    recs = recs[:40]
+    gd, classes, genomes = trained_models
+    recs = _seeded_reads(genomes, 40, seed=6)
     cls_map = {h.split()[0]: [classes[i % 2]]
                for i, (h, _s) in enumerate(recs)}
     monkeypatch.setattr(dpk, "MAX_EVENTS", 12)
@@ -338,43 +338,104 @@ def test_event_overflow_falls_back(trained_models, monkeypatch):
     assert n_genes > 0  # overflow reads really produced genes via fallback
 
 
-def test_default_engages_without_native(trained_models, monkeypatch):
-    """With the native engine unavailable and an accelerator present, the
-    device path is the default (no env var needed)."""
+def test_default_engages_without_native(monkeypatch):
+    """The default route follows the backend alone: device-resident on a
+    GPU backend, the host engines on a CPU backend, with or without the
+    native engine."""
     monkeypatch.delenv("GLIMMER_MG_TPU_DEVICE_DP", raising=False)
     import glimmer_mg_tpu.native as native_mod
-
-    monkeypatch.setattr(native_mod, "available", lambda: False)
     import jax
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert mg._use_device_dp()
-    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-    assert not mg._use_device_dp()
-    monkeypatch.setattr(native_mod, "available", lambda: True)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    for native_ok in (False, True):
+        monkeypatch.setattr(native_mod, "available", lambda: native_ok)
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        assert mg._use_device_dp()
+        monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
+        assert not mg._use_device_dp()
+
+
+def test_engine_autoselect_economics(monkeypatch):
+    """No throughput constants: core and device counts do not move the
+    choice, GLIMMER_MG_TPU_DEVICE_DP=0/1 forces either route, and a
+    backend that fails to initialise raises instead of passing for a
+    machine without an accelerator."""
+    monkeypatch.delenv("GLIMMER_MG_TPU_DEVICE_DP", raising=False)
+    import jax
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(os, "cpu_count", lambda: 64)
     monkeypatch.setattr(jax, "local_device_count", lambda: 1)
-    monkeypatch.setattr(os, "cpu_count", lambda: 2)
-    assert not mg._use_device_dp()  # 1 chip loses to 2 host cores
-
-
-def test_engine_autoselect_economics(trained_models, monkeypatch):
-    """With both engines available the default is a measured-throughput
-    choice: a chip fleet beats the host cores once chips x ~3.5k reads/s
-    exceeds cores x ~10.8k (VERDICT r4 task 8)."""
-    monkeypatch.delenv("GLIMMER_MG_TPU_DEVICE_DP", raising=False)
-    import glimmer_mg_tpu.native as native_mod
-    import jax
-
-    monkeypatch.setattr(native_mod, "available", lambda: True)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    monkeypatch.setattr(os, "cpu_count", lambda: 2)
-    monkeypatch.setattr(jax, "local_device_count", lambda: 16)
-    assert mg._use_device_dp()  # 16 chips (~56k) beat 2 cores (~22k)
-    monkeypatch.setattr(jax, "local_device_count", lambda: 4)
-    assert not mg._use_device_dp()  # 4 chips (~14k) lose
+    assert mg._use_device_dp()  # 1 card vs 64 cores: still the card
+    monkeypatch.setenv("GLIMMER_MG_TPU_DEVICE_DP", "0")
+    assert not mg._use_device_dp()
+    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
     monkeypatch.setenv("GLIMMER_MG_TPU_DEVICE_DP", "1")
     assert mg._use_device_dp()  # env override wins regardless
+    monkeypatch.delenv("GLIMMER_MG_TPU_DEVICE_DP")
+
+    def broken():
+        raise RuntimeError("backend failed to initialise")
+
+    monkeypatch.setattr(jax, "default_backend", broken)
+    with pytest.raises(RuntimeError):
+        mg._use_device_dp()
+
+
+def _subs_quality_runs(reads, gd, cls_map, qualities, monkeypatch):
+    """-S with quality files (classes mode) through the Python host
+    engine, the native engine, and the device path; returns the three
+    result lists."""
+    out = []
+    for native, dev in (("0", "0"), ("1", "0"), ("0", "1")):
+        monkeypatch.setenv("GLIMMER_MG_TPU_NATIVE", native)
+        monkeypatch.setenv("GLIMMER_MG_TPU_DEVICE_DP", dev)
+        out.append([
+            (h, [(g.id, g.start, g.stop, g.frame, "%8.2f" % g.score,
+                  tuple((e.pos, e.type) for e in g.errors)) for g in gs])
+            for h, gs in mg.run_glimmer_mg_classes(
+                reads, gd, cls_map, allow_subs=True, qualities=qualities,
+                device_precompute=False)])
+    return out
+
+
+def test_negative_quality_floors_at_zero(trained_models, monkeypatch):
+    """Negative (Solexa-scale) qualities floor at 0 on every engine: the
+    device upload no longer wraps them through uint8 into a high
+    quality, so device, native and Python engines agree."""
+    gd, classes, genomes = trained_models
+    reads = _fragments(genomes[classes[0]], 30, seed=61)
+    cls_map = {h: [classes[0]] for h, _s in reads}
+    rng = np.random.default_rng(61)
+    qualities = {rid: [int(q) for q in rng.integers(-5, 40, len(s))]
+                 for rid, s in reads}
+    py, nat, dev = _subs_quality_runs(reads, gd, cls_map, qualities,
+                                      monkeypatch)
+    assert py == nat == dev
+    floored = {rid: [max(q, 0) for q in qv] for rid, qv in qualities.items()}
+    assert _subs_quality_runs(reads, gd, cls_map, floored,
+                              monkeypatch)[2] == dev
+
+
+def test_quality_zero_penalty_is_finite(trained_models, monkeypatch):
+    """q=0 makes the stop-pass probability 0; the host engines clamp it
+    like the device path (finite penalty) instead of raising log(0)."""
+    import math
+
+    gd, classes, genomes = trained_models
+    assert math.isfinite(mg.pass_stop_penalty(
+        None, "taataa", [0] * 6, 1, 4, 6))
+    reads = _fragments(genomes[classes[0]], 30, seed=62)
+    cls_map = {h: [classes[0]] for h, _s in reads}
+    rng = np.random.default_rng(62)
+    qualities = {}
+    for rid, s in reads:
+        q = rng.integers(5, 40, len(s))
+        q[rng.random(len(s)) < 0.2] = 0
+        qualities[rid] = [int(v) for v in q]
+    py, nat, dev = _subs_quality_runs(reads, gd, cls_map, qualities,
+                                      monkeypatch)
+    assert py == nat == dev
+    assert sum(1 for _h, gs in py for g in gs if g[5]) > 0
 
 
 def test_long_reads_parity(trained_models, monkeypatch):
@@ -382,7 +443,7 @@ def test_long_reads_parity(trained_models, monkeypatch):
     must stay pos-then-family for any padded length (r4 advisor high —
     pos*8192+rank overflowed its bucket above Lp~1360). Gene-dense long
     reads device vs host."""
-    gd, classes = trained_models
+    gd, classes, genomes = trained_models
     rng = np.random.default_rng(53)
     reads = []
     cls_map = {}
@@ -425,7 +486,7 @@ def test_fuzz_overlap_dense(trained_models, monkeypatch):
     overlapping gene-like segments on both strands, so closures fire with
     many openers inside the 50 bp window (the vectorized re-link +
     disqualify/requalify machinery must match the host exactly)."""
-    gd, classes = trained_models
+    gd, classes, genomes = trained_models
     rng = np.random.default_rng(41)
     reads = []
     cls_map = {}
@@ -464,61 +525,6 @@ def test_fuzz_overlap_dense(trained_models, monkeypatch):
         assert _coords(hg) == _coords(dg), h
         n_genes += len(hg)
     assert n_genes > 15  # dense input really generated genes (26 measured)
-
-
-def test_packed_layout_roundtrip_and_sixframe_parity():
-    """The chip upload path: pack_reads/unpack_reads round-trip bit-exact,
-    and the layout-ordered six-frame Pallas call (interpret mode) matches
-    the XLA walk on the same rows."""
-    import jax
-    import numpy as np
-
-    from glimmer_mg_tpu.models import dna, icm as icm_mod, icm_train
-    from glimmer_mg_tpu.engine import orfs as orf_mod
-    from glimmer_mg_tpu.ops import device_predict as dpk, icm_pallas, icm_score
-
-    rng = np.random.default_rng(11)
-    seqs = [rng.integers(0, 4, rng.integers(40, 120)).astype(np.int8)
-            for _ in range(13)]
-    groups = rng.integers(0, 2, 13).astype(np.int32)
-    L = 120
-    layout = icm_pallas.plan_group_layout(groups, L)
-    row_src = layout[0]
-    packed, lens2, grp2 = dpk.pack_reads(seqs, row_src, L, groups)
-    reads_dev = np.asarray(dpk.unpack_reads(packed, L))
-    for row, src in enumerate(row_src):
-        if src >= 0:
-            s = seqs[src][:L]
-            assert np.array_equal(reads_dev[row, :len(s)], s), row
-            assert reads_dev[row, len(s):].max(initial=0) == 0
-            assert lens2[row] == len(s) and grp2[row] == groups[src]
-        else:
-            assert lens2[row] == 0
-
-    # two tiny model pairs; layout-ordered pallas (interpret) vs XLA walk
-    pat = orf_mod.CodonPatterns.make()
-    icms = []
-    for k in range(2):
-        tr = ["atg" + "".join(rng.choice(list("acgt"), 120)) for _ in range(4)]
-        icms.append(icm_train.train_icm(
-            [dna.encode(s) for s in tr], model_len=12, depth=3))
-    indep = icm_mod.build_indep_wo_stops(0.5, pat.stop_codons)
-    gmip = np.stack([m.mip for m in icms])
-    gprobs = np.stack([m.probs for m in icms])
-    imip = np.stack([indep.mip] * 2)
-    iprobs = np.stack([indep.probs] * 2)
-
-    g6p, i6p = icm_pallas.mg_six_frame_pallas(
-        gmip, gprobs, imip, iprobs, reads_dev, lens2, grp2,
-        model_len=12, depth=3, interpret=True, layout=layout)
-    g6x, i6x = icm_score.mg_six_frame_batch(
-        gmip, gprobs, imip, iprobs, reads_dev, lens2, grp2,
-        model_len=12, depth=3)
-    mask = (np.arange(L)[None, :] < lens2[:, None])[:, None, :]
-    for a, b in ((g6p, g6x), (i6p, i6x)):
-        a = np.where(mask, np.asarray(a), 0.0)
-        b = np.where(mask, np.asarray(b), 0.0)
-        assert np.array_equal(a, b)  # bitwise on every in-read base
 
 
 def test_first_start_codon_flag_is_eligible(monkeypatch):
@@ -561,3 +567,39 @@ def test_first_start_codon_flag_is_eligible(monkeypatch):
         assert _coords(host) == _coords(dev[r]), r
         n_genes += len(host)
     assert n_genes > 5
+
+
+def test_group_count_shares_one_program(monkeypatch):
+    """Chunks holding different numbers of model groups pad the bank to
+    one group bucket, so they share one compiled device program instead
+    of compiling once per group count."""
+    from glimmer_mg_tpu.ops import device_predict as dpk
+
+    rng = np.random.default_rng(71)
+    pat = orf_mod.CodonPatterns.make()
+    train = ["atg" + "".join(rng.choice(list("acgt"), 300)) + "taa"
+             for _ in range(8)]
+    gicm = icm_train.train_icm(
+        [dna.encode(s) for s in train], model_len=12, depth=3)
+    models = [
+        Models(gene_icm=gicm,
+               indep_model=icm_mod.build_indep_wo_stops(gc, pat.stop_codons),
+               patterns=pat, min_gene_len=75, allow_truncated_orfs=True)
+        for gc in (0.4, 0.5, 0.6)
+    ]
+    seqs = [dna.encode("".join(rng.choice(list("acgt"), 200)))
+            for _ in range(12)]
+    one = [(s, models[0], None, False) for s in seqs]
+    three = [(s, models[i % 3], None, False) for i, s in enumerate(seqs)]
+    mg._DEVICE_BANK_CACHE.clear()
+    dpk._JIT_CACHE.clear()
+    assert mg._device_dp_chunk(one, False, False) is not None
+    keys = list(dpk._JIT_CACHE)
+    assert mg._device_dp_chunk(three, False, False) is not None
+    assert list(dpk._JIT_CACHE) == keys  # no second program
+    shapes = {b.gene_mip.shape for b in mg._DEVICE_BANK_CACHE.values()}
+    assert len(mg._DEVICE_BANK_CACHE) == 2 and len(shapes) == 1
+    assert shapes.pop()[0] == 8
+    dev = mg._device_dp_chunk(three, False, False)
+    for r, (s, m, _q, _hq) in enumerate(three):
+        assert _coords(mg._predict_read_with_models(m, s)) == _coords(dev[r])

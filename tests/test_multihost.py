@@ -3,7 +3,7 @@
 Launches two real OS processes, each with 4 virtual CPU devices, joined via
 parallel.mesh.init_distributed (VERDICT r1 item 4). Proves the
 classification all-gather and the training-count psum cross process
-boundaries — the single-machine stand-in for a multi-host TPU pod and the
+boundaries — the single-machine stand-in for a multi-host mesh and the
 replacement for the reference's Condor fan-out (phymm_par.py:268-274).
 """
 

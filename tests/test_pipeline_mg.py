@@ -106,9 +106,9 @@ def test_pipeline_with_mesh(mg_db):
     # meshed classification scores equal the unsharded raw matrix
     raw = work / phymm.raw_phymm_name("reads.fa")
     p1, r1, s1 = phymm.read_raw_phymm_output(raw)
-    bank = phymm.PhymmBank(p1)
+    bank = phymm.PhymmBank.from_paths(p1)
     s_ref = bank.score_reads(
-        [s.lower() for _, s in read_fasta(root / "reads.fa")], use_pallas=False
+        [s.lower() for _, s in read_fasta(root / "reads.fa")]
     )
     np.testing.assert_allclose(s1, s_ref, atol=5e-4)
 
@@ -231,70 +231,3 @@ def test_full_pipeline(mg_db):
         class_done=True, clust_done=True,
     )
     assert Path(final2).exists()
-
-
-def test_quantized_arbitration_outcomes(mg_db):
-    """Bound the TPU kernel's 16-bit score quantization effect on the
-    cluster-vs-classification arbitration (VERDICT r3 task 4).
-
-    The Pallas classification kernel quantizes log-probs to 1/256 steps
-    (worst case ~2/256 per bp of ratio error vs the -0.013/bp threshold);
-    this test computes the arbitration ratio (cluster - phymm)/len for
-    every fixture read under EXACT and 16-bit-quantized tables — via the
-    same walk, so the difference isolates quantization (the kernels are
-    bitwise equal to these quantized walks, tests/test_parallel.py) — and
-    asserts identical combine_predictions outcomes, recording the margin.
-    """
-    import jax.numpy as jnp
-
-    from glimmer_mg_tpu.models import icm as icm_mod
-    from glimmer_mg_tpu.ops import icm_pallas, icm_score
-    from glimmer_mg_tpu.parallel import phymm
-    from glimmer_mg_tpu.parallel.classify import pad_reads, revcomp_reads
-
-    root, icm_dir, reads, _truth = mg_db
-    seqs = [s.lower() for _h, s in reads]
-    padded, lengths = pad_reads(seqs)
-
-    # "phymm" bank = whole-genome ICMs; "cluster" bank = the gene ICMs
-    bank_paths = phymm.genome_icm_paths(str(icm_dir))
-    phymm_icms = [icm_mod.read_icm(p) for p in bank_paths]
-    clust_icms = [
-        icm_mod.read_icm(p.replace(".icm", ".gicm")) for p in bank_paths
-    ]
-
-    def score(icms, quantize):
-        mip, probs = icm_score.stack_bank(icms)
-        if quantize:
-            scale = icm_pallas.FIXED_SCALE
-            probs = np.maximum(probs, np.float32(-32768.0 / scale))
-            probs = (np.clip(np.rint(probs * scale), -32768, 0) / scale
-                     ).astype(np.float32)
-        r = jnp.asarray(padded)
-        ln = jnp.asarray(lengths)
-        fwd = icm_score.bank_score_reads(
-            jnp.asarray(mip), jnp.asarray(probs), r, ln, 12, 7)
-        rev = icm_score.bank_score_reads(
-            jnp.asarray(mip), jnp.asarray(probs), revcomp_reads(r, ln), ln,
-            12, 7)
-        return np.asarray(jnp.maximum(fwd, rev))
-
-    ratios = {}
-    for quantize in (False, True):
-        sp = score(phymm_icms, quantize)
-        sc = score(clust_icms, quantize)
-        top_phymm = sp.max(axis=1)
-        top_clust = sc.max(axis=1)
-        ratios[quantize] = (top_clust - top_phymm) / lengths
-    from glimmer_mg_tpu.pipeline.glimmer_mg_pipe import MIN_CLUST_PHYMM_RATIO
-
-    exact_out = ratios[False] < MIN_CLUST_PHYMM_RATIO
-    quant_out = ratios[True] < MIN_CLUST_PHYMM_RATIO
-    # identical arbitration decisions for every read
-    assert (exact_out == quant_out).all(), (
-        ratios[False][exact_out != quant_out],
-        ratios[True][exact_out != quant_out],
-    )
-    # measured drift must stay well under the threshold's scale
-    drift = np.abs(ratios[True] - ratios[False])
-    assert drift.max() < 2.5 / 256.0, drift.max()
